@@ -5,10 +5,8 @@ Run from the repo root: python -u examples/demo_pangenome_scan.py
 import sys, os
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import time, numpy as np
-import jax
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-from grafimo_tpu.ops.device import start_device_warmup
-start_device_warmup()
+from grafimo_tpu.utils.compile_cache import enable_compile_cache
+enable_compile_cache()
 from grafimo_tpu.graph.sitegraph import build_graph
 from grafimo_tpu.io.vcf import VcfRecord
 from grafimo_tpu.models.motif import Motif
@@ -48,8 +46,8 @@ t_all = time.time()
 for k, ms in sorted(by_width.items()):
     t0=time.time()
     rr = build_region_runs(g, "c", [(0, L)], k)
-    dfs = compute_results_runs(ms, rr, threshold=1e-5, recomb=False, verbose=True)
-    nh = sum(len(d) for d in dfs.values())
+    tables = compute_results_runs(ms, rr, threshold=1e-5, recomb=False, verbose=True)
+    nh = sum(len(t) for t in tables.values())
     total_hits += nh
     print(f"width {k} x {len(ms)} motifs: {time.time()-t0:.1f}s hits={nh}", flush=True)
 print(f"TOTAL scan wall: {time.time()-t_all:.1f}s, hits={total_hits}", flush=True)

@@ -2,7 +2,7 @@
 
 Reproduces the reference's two-subcommand CLI surface and flag set
 (``src/grafimo/__main__.py:119-413``, ``GRAFIMOArgumentParser.py:18-135``)
-over the TPU-native pipeline.
+over the JAX scan pipeline.
 """
 
 import argparse
@@ -20,8 +20,8 @@ def get_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="grafimo-tpu",
         description=(
-            "GRAFIMO-TPU: TPU-native scan of genome variation graphs for "
-            "DNA motif occurrences"
+            "GRAFIMO-TPU: scan genome variation graphs for DNA motif "
+            "occurrences on an accelerator"
         ),
     )
     parser.add_argument(
@@ -165,11 +165,11 @@ def get_parser() -> argparse.ArgumentParser:
     find.add_argument(
         "--coordinator", type=str, default="", dest="coordinator",
         help="multi-host: jax.distributed coordinator address host:port "
-             '(or "auto" to autodetect in managed TPU environments)',
+             '(or "auto" to autodetect in managed cluster environments)',
     )
     find.add_argument(
         "--num-processes", type=int, default=0, dest="num_processes",
-        help="multi-host: total number of processes in the pod slice",
+        help="multi-host: total number of processes",
     )
     find.add_argument(
         "--process-id", type=int, default=-1, dest="process_id",

@@ -79,9 +79,9 @@ class Findmotif:
     # when set, persist/reuse device-ready scan batches per
     # (graphs, regions, width) under this directory (checkpoint/resume)
     cache_dir: str = ""
-    # multi-host (pod-slice) execution: jax.distributed coordinator
-    # "host:port" + process topology; leave unset for single-host (or for
-    # managed TPU environments, where --num-processes 0 with
+    # multi-host execution: jax.distributed coordinator "host:port" +
+    # process topology; leave unset for single-host (or for managed
+    # cluster environments, where --num-processes 0 with
     # --coordinator "auto" autodetects)
     coordinator: str = ""
     num_processes: int = 0

@@ -1,7 +1,7 @@
 """Run-compressed window extraction.
 
 The per-window pipeline (``graph/enumerate.py``) materialises every k-window
-on the host and ships ~5 bytes/window to the device.  At TPU speeds the
+on the host and ships ~5 bytes/window to the device.  At accelerator speeds the
 host->device link, not compute, is the scan's bottleneck — so this module
 reorganises extraction around **runs**: contiguous path sequences in which
 every stride-1 offset is (potentially) a window.  The device expands windows

@@ -125,7 +125,7 @@ class PvalueLookup:
 
         p(s) is non-increasing in s, so ``score >= cutoff`` is exactly the
         device-side predicate for ``pvalue < threshold`` — an integer
-        comparison the TPU can fuse into the scoring kernel.  Returns
+        comparison the device can fuse into the scoring kernel.  Returns
         ``len(table)`` when no score passes.
         """
         cached = self._cutoffs.get(threshold)

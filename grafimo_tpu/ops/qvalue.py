@@ -5,7 +5,7 @@ method="fdr_bh")`` over the full per-motif p-value list
 (``score_sequences.py:401-430``).  :func:`fdr_bh` replicates statsmodels'
 operation order bit-for-bit; :func:`qvalues_from_histogram` produces the
 *same float64 values* from the integer score histogram alone, which is the
-TPU-native formulation: histograms are small, additive across chips (psum),
+accelerator formulation: histograms are small, additive across devices (psum),
 and make exact global q-values possible without gathering per-window
 p-values (SURVEY.md §5.8).
 """

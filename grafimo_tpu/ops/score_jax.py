@@ -5,16 +5,16 @@ The scoring step replaces the reference's per-window numba loop
 
     scores[b, m] = sum_i  S_m[code[b, i], i]
 
-expressed as ``(B, 4k) @ (4k, M)`` so it rides the MXU.  All scaled scores
+expressed as ``(B, 4k) @ (4k, M)`` so it rides the matrix units.  All scaled scores
 are integers in ``[0, RANGE]``; with float32 accumulation every intermediate
 value is below 2^24 so the result is exact and bit-equal to the reference's
 integer arithmetic.
 
 Alongside the scores the kernel accumulates an integer histogram of scores
-per motif.  The histogram is the key TPU-native design move: because scaled
+per motif.  The histogram is the key design move: because scaled
 scores are bounded integers, the *entire* score distribution of a scan fits
 in ``RANGE*k+1`` bins, which makes exact p-value thresholds, exact global
-BH q-values and cross-chip reduction (``psum`` over histograms) possible
+BH q-values and cross-device reduction (``psum`` over histograms) possible
 without ever materialising per-window p-values (cf. SURVEY.md §5.8).
 
 Windows containing any non-ACGT symbol score ``min_score`` exactly like the

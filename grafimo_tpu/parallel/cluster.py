@@ -1,4 +1,4 @@
-"""Multi-host (pod-slice) execution helpers.
+"""Multi-host execution helpers.
 
 A multi-host scan is the same program as a single-host one: every host
 builds runs for its own shard of regions, scans them over its LOCAL
@@ -32,8 +32,8 @@ def initialize_cluster(
 ) -> None:
     """Initialise ``jax.distributed`` (no-op on a single host).
 
-    In managed environments (GKE/TPU VMs) argument-less initialisation
-    discovers the topology; otherwise pass coordinator/process info
+    In managed cluster environments (e.g. SLURM) argument-less
+    initialisation discovers the topology; otherwise pass coordinator/process info
     explicitly.  Must run before any jax backend initialises.
     """
     import jax
@@ -78,7 +78,7 @@ def allreduce_hist(hist: np.ndarray) -> np.ndarray:
     """Sum an int64 histogram over all processes (exact).
 
     The counts ride as float64 (integer-exact below 2**53 — genome-scale
-    totals are ~2**35) because the CPU/TPU collective path truncates int64
+    totals are ~2**35) because the collective path truncates int64
     without ``jax_enable_x64``; the sum converts back to int64.
     """
     import jax

@@ -2,7 +2,7 @@
 
 The reference's only parallelism was single-host ``multiprocessing`` over
 TSV chunks with Manager-dict merges (``score_sequences.py:115-157``).  The
-TPU-native layout (SURVEY.md §2.18, §5.8):
+layout here (SURVEY.md §2.18, §5.8):
 
 * window batches are sharded over the mesh ``data`` axis (every window is
   independent — the scan is embarrassingly data-parallel);
@@ -15,7 +15,7 @@ TPU-native layout (SURVEY.md §2.18, §5.8):
   per-window data;
 * hits are compacted host-side from the sharded score output.
 
-The same step function serves 1 chip, 1 host, or an N-host pod slice; only
+The same step function serves 1 device, 1 host, or N hosts; only
 the mesh changes.
 """
 
@@ -105,23 +105,10 @@ def sharded_scan_step(mesh: Mesh, hist_size: int):
     return run
 
 
-def sharded_run_scan(
-    mesh: Mesh, k: int, hist_size: int, pallas_hist: bool = False
-):
+def sharded_run_scan(mesh: Mesh, k: int, hist_size: int):
     """Multi-chip version of the production run scan
     (``ops/score_runs.scan_runs_device``): run rows shard over ``data``,
     PWM columns over ``motif``, histograms psum over ``data``.
-
-    ``pallas_hist=True`` runs the Pallas VMEM-one-hot histogram
-    *per shard* inside the ``shard_map`` (each shard's shapes are
-    static, so the Mosaic kernel never has to partition — the blocker
-    is GSPMD auto-sharding, not ``shard_map``).  It requires
-    ``GRAFIMO_PALLAS_HIST`` to name a kernel (e.g. ``bf16lo128``) and
-    disables the shard_map vma check: ``pallas_call``'s ``out_shape``
-    carries no varying-manual-axes annotation, and propagating the
-    operand's vma trips the interpreter's internal constants — results
-    are checked bit-identical to the XLA-dot path in
-    ``__graft_entry__.dryrun_multichip`` and ``tests/test_parallel.py``.
 
     Returns ``run(packed, nbits, vbits, pwm_kernel, min_scores, cutoffs)
     -> (hist, hitbits, hit_counts)`` with
@@ -137,7 +124,7 @@ def sharded_run_scan(
     def _step(packed, nbits, vbits, pwm_kernel, min_scores, cutoffs):
         hist, hitbits = _scan_core(
             packed, nbits, vbits, pwm_kernel, min_scores, cutoffs, k,
-            hist_size, allow_pallas=pallas_hist,
+            hist_size,
         )
         hist = jax.lax.psum(hist, "data")
         counts = jnp.sum(
@@ -164,7 +151,6 @@ def sharded_run_scan(
                 P("data", None, "motif"),
                 P("motif"),
             ),
-            check_vma=not pallas_hist,
         )
     )
 
@@ -184,7 +170,6 @@ def sharded_run_scan(
 
 def sharded_resident_scan(
     mesh: Mesh, r: int, k: int, hist_size: int, with_n: bool = False,
-    pallas_hist: bool = False,
 ):
     """Multi-chip device-resident backbone scan
     (``ops/score_runs.scan_runs_resident_topk``'s expansion inside a
@@ -198,7 +183,6 @@ def sharded_resident_scan(
     ``gstart``
     to the data-axis size with 0s and pad ``vbits`` with all-zero rows —
     padding windows are invalid and drop from histograms and counts.
-    ``pallas_hist``: see :func:`sharded_run_scan`.
     """
     from grafimo_tpu.ops.score_runs import (
         _expand_resident,
@@ -222,7 +206,7 @@ def sharded_resident_scan(
             n_ind = _expand_resident_bits(ngenome, gstart, r)
             hist, hitbits = _score_codes(
                 codes, n_ind, vbits, pwm_kernel, min_scores, cutoffs,
-                k, hist_size, allow_pallas=pallas_hist,
+                k, hist_size,
             )
             return _finish(hist, hitbits)
 
@@ -236,7 +220,7 @@ def sharded_resident_scan(
             codes = _expand_resident(genome4, gstart, r)
             hist, hitbits = _score_codes(
                 codes, None, vbits, pwm_kernel, min_scores, cutoffs,
-                k, hist_size, allow_pallas=pallas_hist,
+                k, hist_size,
             )
             return _finish(hist, hitbits)
 
@@ -255,7 +239,6 @@ def sharded_resident_scan(
                 P("data", None, "motif"),
                 P("motif"),
             ),
-            check_vma=not pallas_hist,
         )
     )
 

@@ -8,19 +8,21 @@ instead of shelling out to ``vg view`` + graphviz (a ``.dot`` file is
 always written; PNG rendering uses the ``dot`` binary when present).
 """
 
+import csv
+import html
 import os
 import shutil
 import subprocess
 from typing import Dict, List, Optional
 
 import numpy as np
-import pandas as pd
 
+from grafimo_tpu.report.results import ResultTable
 from grafimo_tpu.utils.constants import DEFAULT_OUTDIR, PHASE, SOURCE, TP
 
 
 def write_results(
-    results: pd.DataFrame,
+    results: ResultTable,
     motif_id: str,
     motif_num: int,
     outdir: str,
@@ -43,16 +45,12 @@ def write_results(
         prefix = "_".join(["grafimo_out", motif_id])
     else:
         prefix = "grafimo_out"
-    results.to_csv(
-        os.path.join(outdir, ".".join([prefix, "tsv"])),
-        sep="\t",
-        encoding="utf-8",
-    )
-    results.to_html(os.path.join(outdir, ".".join([prefix, "html"])))
+    write_tsv(os.path.join(outdir, ".".join([prefix, "tsv"])), results)
+    write_html(os.path.join(outdir, ".".join([prefix, "html"])), results)
     write_gff3(os.path.join(outdir, prefix), results, no_qvalue)
     if top_graphs > 0:
         regions: List[str] = []
-        for r in results["sequence_name"].tolist():
+        for r in results["sequence_name"]:
             if len(regions) >= top_graphs:
                 break
             if r not in regions:
@@ -68,14 +66,49 @@ def write_results(
     return outdir
 
 
-def write_gff3(prefix: str, data: pd.DataFrame, no_qvalue: bool) -> None:
+def _rows(table: ResultTable) -> List[List[str]]:
+    """Index-led rows of cell strings, as pandas' ``to_csv`` lays them
+    out (row label first, then every column)."""
+    cols = table.cells()
+    return [
+        [str(i)] + [c[i] for c in cols] for i in range(len(table))
+    ]
+
+
+def write_tsv(path: str, table: ResultTable) -> None:
+    """The TSV report, byte-identical to the reference's
+    ``DataFrame.to_csv(sep="\\t")``: an unnamed index column, minimal
+    quoting, ``\\n`` line ends."""
+    with open(path, "w", encoding="utf-8", newline="") as f:
+        writer = csv.writer(f, delimiter="\t", lineterminator="\n")
+        writer.writerow([""] + list(table.columns))
+        writer.writerows(_rows(table))
+
+
+def write_html(path: str, table: ResultTable) -> None:
+    """The report as a plain HTML table (same cells as the TSV)."""
+
+    def tr(cells, tag):
+        inner = "".join(f"<{tag}>{html.escape(c)}</{tag}>" for c in cells)
+        return f"    <tr>{inner}</tr>\n"
+
+    with open(path, "w", encoding="utf-8") as f:
+        f.write('<table border="1">\n  <thead>\n')
+        f.write(tr([""] + list(table.columns), "th"))
+        f.write("  </thead>\n  <tbody>\n")
+        for row in _rows(table):
+            f.write(tr(row, "td"))
+        f.write("  </tbody>\n</table>\n")
+
+
+def write_gff3(prefix: str, data: ResultTable, no_qvalue: bool) -> None:
     """GFF3 report with the reference's exact attribute strings
     (``writeGFF3``, ``res_writer.py:213-305``)."""
     gfffn = ".".join([prefix, "gff"])
     with open(gfffn, "w") as ofstream:
         ofstream.write("##gff-version 3\n")
         for i in range(len(data)):
-            row = data.iloc[i]
+            row = {name: col[i] for name, col in data.columns.items()}
             seqname = row["sequence_name"]
             chrom = seqname.split(":")[0]
             score = round(float(row["score"]), 1)
@@ -182,10 +215,11 @@ def write_region_graph_image(
         )
 
 
-def print_results(results: pd.DataFrame) -> None:
+def print_results(results: ResultTable) -> None:
     """``--text-only`` output (reference ``print_results``,
-    ``res_writer.py:415-439``)."""
-    pd.set_option("display.max_columns", None)
+    ``res_writer.py:415-439``): every column, as aligned text."""
+    rows = [[""] + list(results.columns)] + _rows(results)
+    widths = [max(len(r[j]) for r in rows) for j in range(len(rows[0]))]
     print()
-    print(results)
-    pd.reset_option("display.max_rows")
+    for r in rows:
+        print("  ".join(c.rjust(w) for c, w in zip(r, widths)))

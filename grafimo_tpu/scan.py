@@ -19,7 +19,6 @@ from dataclasses import dataclass
 from typing import Iterable, Optional
 
 import numpy as np
-import pandas as pd
 
 from grafimo_tpu.models.motif import Motif
 from grafimo_tpu.models.pvalue import PvalueLookup
@@ -29,10 +28,15 @@ from grafimo_tpu.ops.score_jax import (
     pwms_to_flat,
     score_and_histogram,
 )
+from grafimo_tpu.report.results import (
+    ResultTable,
+    apply_report_filters,
+    build_results_df,
+)
 from grafimo_tpu.windows import WindowBatch
 
 # device-batch granularity: windows are scored in chunks of this many rows
-# (bounds device memory; large enough to keep the MXU busy)
+# (bounds device memory; large enough to fill the device)
 CHUNK = 1 << 18
 
 
@@ -52,10 +56,10 @@ def compute_results(
     no_reverse: bool = False,
     recomb: bool = False,
     stats: Optional[ScanStats] = None,
-) -> pd.DataFrame:
+) -> ResultTable:
     """Full scoring pass for one motif over a stream of window batches.
 
-    Returns the thresholded, p-value-sorted results DataFrame with the
+    Returns the thresholded, p-value-sorted results table with the
     reference's exact column set (``resultsTmp.py:241-314``).
     """
     if stats is None:
@@ -97,51 +101,25 @@ def compute_results(
 
     scores = np.concatenate(kept_scores)
     lookup = PvalueLookup(motif.pval_table)
-    pvalues = lookup.pvalues(scores)
-    # de-scale to log-odds (reference score_sequences.py:393)
-    logodds = (scores / motif.scale) + (motif.width * motif.offset)
-
-    columns = {
-        "motif_id": [motif.motif_id] * len(scores),
-        "motif_alt_id": [motif.motif_name] * len(scores),
-        "sequence_name": [s for b in kept_batches for s in b.seqnames],
-        "start": np.concatenate([b.starts for b in kept_batches]),
-        "stop": np.concatenate([b.stops for b in kept_batches]),
-        "strand": [s for b in kept_batches for s in b.strands],
-        "score": logodds,
-        "p-value": pvalues,
-    }
+    qvalues = None
     if not no_qvalue:
         qmap = qvalues_from_histogram(
             hist_total, lambda s: lookup.pvalues(s)
         )
-        columns["q-value"] = np.array(
-            [qmap[int(s)] for s in scores], dtype=np.float64
-        )
-    columns["matched_sequence"] = [s for b in kept_batches for s in b.seqs]
-    freqs = np.concatenate([b.freqs for b in kept_batches])
-    columns["haplotype_frequency"] = freqs
-    # indel reference fix (reference score_sequences.py:305-307)
-    starts = columns["start"]
-    stops = columns["stop"]
-    distance = np.abs(stops - starts)
-    refs = [
-        "non.ref" if (r == "ref" and d != motif.width) else r
-        for r, d in zip(
-            (s for b in kept_batches for s in b.refs), distance.tolist()
-        )
-    ]
-    columns["reference"] = refs
-
-    df = pd.DataFrame(columns)
-    # threshold on p- or q-values (reference resultsTmp.py:302-307)
-    if qval_t:
-        df_thresh = df[df["q-value"] < threshold]
-    else:
-        df_thresh = df[df["p-value"] < threshold]
-    # drop unobserved recombinants (reference resultsTmp.py:308-310)
-    if not recomb:
-        df_thresh = df_thresh[df_thresh["haplotype_frequency"] > 0]
-    df_thresh = df_thresh.sort_values(["p-value"], ascending=True)
-    df_thresh = df_thresh.reset_index(drop=True)
-    return df_thresh
+        qvalues = np.array([qmap[int(s)] for s in scores], dtype=np.float64)
+    table = build_results_df(
+        motif,
+        [s for b in kept_batches for s in b.seqnames],
+        np.concatenate([b.starts for b in kept_batches]),
+        np.concatenate([b.stops for b in kept_batches]),
+        [s for b in kept_batches for s in b.strands],
+        scores,
+        lookup.pvalues(scores),
+        [s for b in kept_batches for s in b.seqs],
+        np.concatenate([b.freqs for b in kept_batches]),
+        [s for b in kept_batches for s in b.refs],
+        qvalues=qvalues,
+    )
+    # threshold on p- or q-values, drop unobserved recombinants, sort
+    # (reference resultsTmp.py:302-313)
+    return apply_report_filters(table, threshold, qval_t, recomb)

@@ -5,6 +5,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
+from conftest import frame
 from grafimo_tpu.graph.enumerate import enumerate_region_windows
 from grafimo_tpu.graph.runs import (
     MAX_COMBOS_PER_CLUSTER,
@@ -108,7 +109,7 @@ def test_fallback_through_scan_engine(dense_graph, input_dir):
     ]
     batch = extract_region(dense_graph, 0, 100, k, chrom_display="d")
     want = compute_results(motif, [batch], threshold=1.0, recomb=True)
-    canon = lambda df: df.sort_values(
+    canon = lambda df: frame(df).sort_values(
         ["p-value", "start", "stop", "strand", "matched_sequence",
          "haplotype_frequency"]
     ).reset_index(drop=True)

@@ -6,6 +6,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
+from conftest import frame
 from grafimo_tpu.graph.extract import extract_region
 from grafimo_tpu.models.background import load_bg
 from grafimo_tpu.models.motif import Motif
@@ -17,8 +18,8 @@ from grafimo_tpu.utils.constants import UNIF
 from tests.test_runs_differential import _random_graph
 
 
-def _canon(df: pd.DataFrame) -> pd.DataFrame:
-    return df.sort_values(
+def _canon(table) -> pd.DataFrame:
+    return frame(table).sort_values(
         ["p-value", "start", "stop", "strand", "matched_sequence",
          "haplotype_frequency"]
     ).reset_index(drop=True)

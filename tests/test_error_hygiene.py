@@ -9,6 +9,7 @@
 * scan checkpoints are written atomically (write-then-rename).
 """
 
+import os
 import signal
 
 import numpy as np
@@ -130,41 +131,28 @@ def test_motif_pool_restores_sigint_handler(monkeypatch):
     assert signal.getsignal(signal.SIGINT) is before
 
 
-def test_persistent_compile_cache_env_gate(monkeypatch, tmp_path):
-    """findmotif points jax at an on-disk compile cache; the
-    ``GRAFIMO_JAX_CACHE`` env var relocates it and ``0`` disables it."""
+@pytest.mark.parametrize("env_set", [True, False])
+def test_persistent_compile_cache_env_gate(monkeypatch, tmp_path, env_set):
+    """The compile cache follows ``JAX_COMPILATION_CACHE_DIR`` when it is
+    set (JAX reads it; no other directory is set in code) and otherwise
+    lives at the fixed ``<checkout>/.jax_cache``."""
     import jax
 
-    from grafimo_tpu.workflows import _enable_persistent_compile_cache
+    import grafimo_tpu.utils.compile_cache as cc
 
-    # the tmp_path cache dir is deleted after the test — restore the
-    # jax config or every later compile in the suite tries to persist
-    # into a dead directory (order-dependent pollution)
-    saved = {
-        name: getattr(jax.config, name)
-        for name in (
-            "jax_compilation_cache_dir",
-            "jax_persistent_cache_min_compile_time_secs",
+    updates = []
+    monkeypatch.setattr(
+        jax.config, "update", lambda *a: updates.append(a)
+    )
+    if env_set:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert cc.enable_compile_cache() == str(tmp_path)
+        assert updates == []
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        want = os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            ".jax_cache",
         )
-    }
-    try:
-        loc = tmp_path / "cc"
-        monkeypatch.setenv("GRAFIMO_JAX_CACHE", str(loc))
-        _enable_persistent_compile_cache()
-        assert loc.is_dir()
-        assert jax.config.jax_compilation_cache_dir == str(loc)
-        # disabled: directory untouched, config unchanged
-        other = tmp_path / "off"
-        monkeypatch.setenv("GRAFIMO_JAX_CACHE", "0")
-        monkeypatch.setattr(
-            jax.config, "update",
-            lambda *a, **k: (_ for _ in ()).throw(
-                AssertionError("called")
-            ),
-        )
-        _enable_persistent_compile_cache()
-        assert not other.exists()
-    finally:
-        monkeypatch.undo()
-        for name, val in saved.items():
-            jax.config.update(name, val)
+        assert cc.enable_compile_cache() == want
+        assert updates == [("jax_compilation_cache_dir", want)]

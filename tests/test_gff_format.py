@@ -2,13 +2,13 @@
 ``writeGFF3`` (``res_writer.py:213-305``)."""
 
 import numpy as np
-import pandas as pd
 
+from grafimo_tpu.report.results import ResultTable
 from grafimo_tpu.report.writer import write_gff3
 
 
 def _df():
-    return pd.DataFrame(
+    return ResultTable(
         {
             "motif_id": ["MA0139.1", "MA0139.1"],
             "motif_alt_id": ["CTCF", "CTCF"],
@@ -51,7 +51,9 @@ def test_gff3_exact_lines(tmp_path):
 
 def test_gff3_no_qvalue(tmp_path):
     prefix = str(tmp_path / "noq")
-    df = _df().drop(columns=["q-value"])
+    df = ResultTable(
+        {n: c for n, c in _df().columns.items() if n != "q-value"}
+    )
     write_gff3(prefix, df, no_qvalue=True)
     text = (tmp_path / "noq.gff").read_text()
     assert "qvalue" not in text

@@ -7,6 +7,7 @@ mixed per-column bases."""
 import numpy as np
 import pytest
 
+from conftest import frame
 from grafimo_tpu.graph.sitegraph import build_graph
 from grafimo_tpu.io.vcf import VcfRecord
 from grafimo_tpu.ops.score_runs import (
@@ -103,8 +104,7 @@ def test_end_to_end_compressed_equals_full(monkeypatch, seed):
     motifs = [_motif(rng, 9, "HC01"), _motif(rng, 9, "HC02")]
 
     monkeypatch.setenv("GRAFIMO_TPU_SINGLE_DEVICE", "1")
-    # force: the auto gate requires the TPU backend (compression rides
-    # the Pallas-hist decision); CPU tests must exercise it explicitly
+    # compression is off by default; the tests force it on
     monkeypatch.setenv("GRAFIMO_HIST_COMPRESS", "force")
     rr = build_region_runs(graph, "h", [(0, graph.length)], 9)
     got = compute_results_runs(motifs, rr, threshold=0.5, recomb=True)
@@ -115,5 +115,7 @@ def test_end_to_end_compressed_equals_full(monkeypatch, seed):
 
     assert set(got) == set(want)
     for mid in got:
-        pd.testing.assert_frame_equal(got[mid], want[mid], check_exact=True)
+        pd.testing.assert_frame_equal(
+            frame(got[mid]), frame(want[mid]), check_exact=True
+        )
         assert len(got[mid]) > 0

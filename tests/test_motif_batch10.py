@@ -5,6 +5,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
+from conftest import frame
 from grafimo_tpu.graph.sitegraph import build_graph
 from grafimo_tpu.io.fasta import read_fasta
 from grafimo_tpu.io.vcf import iter_vcf_records
@@ -38,7 +39,7 @@ def test_ten_pwms_one_pass(input_dir):
         solo = compute_results_runs([m], rr, threshold=1.0, recomb=True)[
             m.motif_id
         ]
-        canon = lambda df: df.sort_values(
+        canon = lambda df: frame(df).sort_values(
             ["p-value", "start", "stop", "strand", "matched_sequence"]
         ).reset_index(drop=True)
         pd.testing.assert_frame_equal(

@@ -3,6 +3,7 @@
 import numpy as np
 import pytest
 
+from conftest import frame
 from grafimo_tpu.graph.runs import region_runs
 from grafimo_tpu.graph.sitegraph import build_graph
 from grafimo_tpu.io.fasta import read_fasta
@@ -129,10 +130,10 @@ def test_native_batcher_matches_python_batcher(input_dir, monkeypatch):
         outs[label] = (stats, chunks, df)
     assert outs["native"][0] == outs["python"][0]
     assert outs["native"][1] == outs["python"][1]
-    a = outs["native"][2].sort_values(
+    a = frame(outs["native"][2]).sort_values(
         ["p-value", "start", "stop", "strand", "matched_sequence"]
     ).reset_index(drop=True)
-    b = outs["python"][2].sort_values(
+    b = frame(outs["python"][2]).sort_values(
         ["p-value", "start", "stop", "strand", "matched_sequence"]
     ).reset_index(drop=True)
     pd.testing.assert_frame_equal(a, b, check_exact=True)

@@ -13,6 +13,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
+from conftest import frame
 from grafimo_tpu.graph.extract import extract_region
 from grafimo_tpu.graph.sitegraph import build_graph
 from grafimo_tpu.io.vcf import VcfRecord
@@ -193,8 +194,8 @@ def test_overlap_graphs_runs_match_enumerator(seed):
         assert_same_windows(graph, rs, re_, k)
 
 
-def _canon(df: pd.DataFrame) -> pd.DataFrame:
-    return df.sort_values(
+def _canon(table) -> pd.DataFrame:
+    return frame(table).sort_values(
         ["p-value", "start", "stop", "strand", "matched_sequence",
          "haplotype_frequency"]
     ).reset_index(drop=True)

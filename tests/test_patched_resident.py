@@ -8,6 +8,7 @@ import pandas as pd
 import pytest
 
 import grafimo_tpu.runscan as rs
+from conftest import frame
 from grafimo_tpu.graph.extract import extract_region
 from grafimo_tpu.graph.sitegraph import build_graph
 from grafimo_tpu.io.vcf import VcfRecord
@@ -48,8 +49,8 @@ def _motif(rng, k):
     )
 
 
-def _canon(df: pd.DataFrame) -> pd.DataFrame:
-    return df.sort_values(
+def _canon(table) -> pd.DataFrame:
+    return frame(table).sort_values(
         ["p-value", "start", "stop", "strand", "matched_sequence",
          "haplotype_frequency"]
     ).reset_index(drop=True)

@@ -6,6 +6,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
+from conftest import frame
 from grafimo_tpu.cli import main
 from grafimo_tpu.graph.sitegraph import build_graph
 from grafimo_tpu.io.vcf import VcfRecord
@@ -85,7 +86,7 @@ def test_hundred_pwm_single_pass():
             [motifs[mi]], rr2, threshold=0.05, recomb=True
         )[motifs[mi].motif_id]
         pd.testing.assert_frame_equal(
-            dfs[motifs[mi].motif_id], want, check_exact=True
+            frame(dfs[motifs[mi].motif_id]), frame(want), check_exact=True
         )
 
 
@@ -130,7 +131,7 @@ def test_fifty_motif_mixed_width_ladder():
             [mo], rr2, threshold=0.02, recomb=True
         )[mo.motif_id]
         pd.testing.assert_frame_equal(
-            dfs[mo.motif_id], want, check_exact=True
+            frame(dfs[mo.motif_id]), frame(want), check_exact=True
         )
 
 

@@ -14,6 +14,7 @@ import pytest
 from grafimo_tpu.models.parse import load_motifs
 from grafimo_tpu.models.pvalue import PvalueLookup
 from grafimo_tpu.ops.qvalue import fdr_bh, qvalues_from_histogram
+from grafimo_tpu.report.writer import write_tsv
 from grafimo_tpu.scan import compute_results
 from grafimo_tpu.utils.constants import UNIF
 from grafimo_tpu.windows import iter_windows_tsv_dir
@@ -41,7 +42,7 @@ def test_scoring_golden_parity(ctcf, input_dir, expected_dir, tmp_path):
         recomb=True,
     )
     out = tmp_path / "scoring_test.tsv"
-    results.to_csv(out, sep="\t")
+    write_tsv(str(out), results)
     got = _sorted(pd.read_csv(out, sep="\t", index_col=0))
     expected = _sorted(
         pd.read_csv(expected_dir / "scoring_results.tsv", sep="\t", index_col=0)

@@ -3,9 +3,9 @@
 
 import os
 
-import pandas as pd
 import pytest
 
+from grafimo_tpu.report.results import ResultTable
 from grafimo_tpu.report.writer import write_results
 from grafimo_tpu.utils.constants import DEFAULT_OUTDIR
 from grafimo_tpu.utils.sniff import (
@@ -18,7 +18,7 @@ from grafimo_tpu.utils.sniff import (
 
 
 def _df():
-    return pd.DataFrame(
+    return ResultTable(
         {
             "motif_id": ["M1"], "motif_alt_id": ["M1"],
             "sequence_name": ["1:0-50"], "start": [10], "stop": [29],
@@ -45,7 +45,7 @@ def test_multi_motif_files_prefixed(tmp_path):
 
 def test_empty_results_rejected(tmp_path):
     with pytest.raises(ValueError):
-        write_results(_df().iloc[0:0], "M1", 1, str(tmp_path / "e"))
+        write_results(_df().take([]), "M1", 1, str(tmp_path / "e"))
 
 
 def test_sniffer_negatives(tmp_path):

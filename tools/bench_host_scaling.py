@@ -9,7 +9,7 @@ measured number:
 * the C++ VCF scanner (mmap + BGZF inflate + GT->bitset parse;
   ``native/vcfio.cpp``).
 
-CPU-only — safe to run alongside nothing (no TPU process involved):
+CPU-only (no process opens the accelerator):
 
     timeout 1200 python tools/bench_host_scaling.py [Mbp]
 """
@@ -18,6 +18,7 @@ import json
 import os
 import struct
 import sys
+import tempfile
 import time
 import zlib
 
@@ -143,7 +144,8 @@ def main() -> None:
             f"c\t{r.pos}\t.\t{r.ref}\t{r.alts[0]}\t.\tPASS\t.\tGT\t{samp}"
         )
     data = ("\n".join(lines) + "\n").encode()
-    vcf_path = "/tmp/bench_host_scaling.vcf.gz"
+    vcf_path = os.path.join(
+        tempfile.gettempdir(), "bench_host_scaling.vcf.gz")
     with open(vcf_path, "wb") as fh:
         fh.write(_bgzf(data))
     vcf = {}

@@ -8,7 +8,7 @@ a 1KGP-like chromosome (~12% indels: mostly 1-2bp, geometric tail,
 per-category host->device wire bytes (``runscan.batch_wire_stats``)
 for the production resident batching, next to a SNP-only control.
 
-CPU-only (no TPU process involved):
+CPU-only (no process opens the accelerator):
 
     timeout 1200 python tools/bench_indel_wire.py [Mbp]
 """

@@ -1,6 +1,6 @@
 """JASPAR-scale device throughput: one resident pass with ~100 PWMs
 (200 motif columns incl. reverse complements) — validates the
-MAX_BASES_PER_DISPATCH / (m//4) HBM scaling at m~200 and records
+MAX_BASES_PER_DISPATCH / (m//4) device-memory scaling at m~200 and records
 window-strand-motif/s (BASELINE.json config 5).  Run alone, under
 timeout."""
 
@@ -15,14 +15,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main() -> None:
     import jax
-
-    cache_dir = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        ".jax_cache",
-    )
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
     import jax.numpy as jnp
+
+    from grafimo_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from grafimo_tpu.models.background import load_bg
     from grafimo_tpu.models.motif import Motif

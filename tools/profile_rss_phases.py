@@ -1,7 +1,7 @@
 """Phase-wise host-RSS attribution for the findmotif pipeline.
 
-Round-5 scale work (VERDICT r4 weak #3): 50 Mbp findmotif peaked at
-24 GB RSS with nothing bounding host-side accumulation.  This tool
+Nothing bounds findmotif's host-side accumulation at chromosome scale,
+so its RSS grows with chromosome length.  This tool
 synthesises a pocketed 1KGP-profile chromosome (same generator as
 bench_chrom_scale), builds the graph, then walks the findmotif phases
 IN PROCESS on the CPU backend with a sampling thread reading
@@ -16,6 +16,7 @@ import argparse
 import gc
 import os
 import sys
+import tempfile
 import threading
 import time
 
@@ -79,7 +80,8 @@ def deep_nbytes(obj, seen=None) -> int:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--mbp", type=float, default=10.0)
-    ap.add_argument("--workdir", default="/tmp/grafimo_rssprof")
+    ap.add_argument("--workdir", default=os.path.join(
+        tempfile.gettempdir(), "grafimo_rssprof"))
     ap.add_argument("--skip-scan", action="store_true")
     ap.add_argument("--reuse", action="store_true")
     ap.add_argument("--budget-mb", type=int, default=0,
